@@ -1,8 +1,9 @@
-"""moonshine_tpu — a TPU-native ray-traced renderer.
+"""moonshine_tpu — a ray-traced renderer in JAX for NVIDIA GPUs.
 
-A ground-up JAX/XLA/Pallas rebuild of the capability surface of the
+A ground-up JAX/XLA rebuild of the capability surface of the
 Moonshine renderer (reference: Zig + Vulkan RT + HLSL). The Vulkan RT
-pipeline becomes a software LBVH with batched stackless traversal; the
+pipeline becomes a software LBVH with stackless traversal (a
+per-thread CUDA kernel on the GPU, a batched JAX walk on the CPU); the
 HLSL megakernel becomes a vectorized SoA path-tracing loop compiled by
 XLA; multi-chip scaling uses `jax.sharding` over pixel/sample meshes.
 

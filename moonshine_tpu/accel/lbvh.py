@@ -1,6 +1,6 @@
 """LBVH construction over world-space triangles.
 
-TPU-native replacement for the reference's Vulkan KHR BLAS/TLAS
+Software replacement for the reference's Vulkan KHR BLAS/TLAS
 (engine/hrtsystem/Accel.zig:94-563). The driver hardware there builds an
 opaque acceleration structure; here we build a Karras radix tree over
 Morton-sorted triangle centroids (Karras 2012, "Maximally Parallel
@@ -518,9 +518,7 @@ def build_sah(
     build then partitions spatial-split REFERENCES (tight clipped boxes,
     possibly several per triangle). The returned BVH's tri_order maps
     sorted positions to original triangle ids (duplicates allowed; leaf
-    code intersects full triangles, so results are identical), and the
-    function returns (bvh, clip_lo_sorted, clip_hi_sorted) so the wide
-    collapse can carve leaf boxes from the clipped reference boxes.
+    code intersects full triangles, so results are identical).
     """
     tri_verts = np.asarray(tri_verts, np.float32)
     if refs is not None:
@@ -611,7 +609,7 @@ def build_sah(
         if n_levels > 48:
             # depth guard: adversarial centroid distributions can make SAH
             # carve 1|n-1 splits indefinitely; median splits from here keep
-            # the depth within the bottom-up passes' bounds (build/wide)
+            # the depth within the bottom-up passes' bounds
             degenerate[:] = True
 
         # left flag per member; degenerate segments split at the median index
@@ -656,14 +654,12 @@ def build_sah(
     child_left[np.concatenate(link_parent)] = np.concatenate(link_left)
     child_right[np.concatenate(link_parent)] = np.concatenate(link_right)
     if refs is not None:
-        bvh = _finalize_topdown(
+        return _finalize_topdown(
             tri_verts, ref_tri[order], node_lo, node_len, child_left,
             child_right, 2 * n_levels + 6, pad_nodes_to_pow2, as_numpy,
             item_min=tmin[order].astype(np.float32),
             item_max=tmax[order].astype(np.float32),
         )
-        return bvh, tmin[order].astype(np.float32), \
-            tmax[order].astype(np.float32)
     return _finalize_topdown(
         tri_verts, order, node_lo, node_len, child_left, child_right,
         2 * n_levels + 6, pad_nodes_to_pow2, as_numpy,
@@ -676,8 +672,8 @@ def _finalize_topdown(tri_verts, order, node_lo, node_len, child_left,
     """Escape links, parent links, AABBs, and array compaction for a
     top-down tree over contiguous ranges of `order`.
 
-    Traversal kernels require escape(left child) == its right sibling
-    (see refit and wide.build_wide); node ids here are emit-ordered, so the
+    Refit requires escape(left child) == its right sibling (see refit);
+    node ids here are emit-ordered, so the
     final arrays are renumbered with each left child preceding its sibling.
     """
     M0 = len(node_lo)
@@ -822,7 +818,7 @@ def refit_host(left: np.ndarray, count: np.ndarray, escape: np.ndarray,
     count = np.asarray(count)
     escape = np.asarray(escape)
     M = len(left)
-    T = len(tri_verts)
+    T = len(sorted_verts)  # sorted references (spatial splits duplicate)
     is_leaf = count > 0
     lo = np.full((M, 3), np.inf, np.float32)
     hi = np.full((M, 3), -np.inf, np.float32)

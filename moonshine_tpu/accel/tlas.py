@@ -1,7 +1,7 @@
 """Two-level acceleration structure (TLAS over instance AABBs + shared
 per-geometry BLASes) — the reference's BLAS dedup, where 4096 instances of
 one mesh share a single acceleration structure
-(/root/reference/engine/hrtsystem/Accel.zig:313-343), rebuilt TPU-first.
+(engine/hrtsystem/Accel.zig:313-343), rebuilt for batched lanes.
 
 The flatten path (scene/world.py) trades memory for locality by expanding
 every instance to world-space rows; past the flatten cap that trade stops
@@ -18,7 +18,7 @@ lockstep `lax.while_loop` state machine per ray batch:
     off the BLAS (escape -1) resumes the TLAS at the saved skip link
     (folded into the TLAS cursor at entry, so no extra state).
 
-Both arms run every iteration with lane masks — the TPU-native shape of
+Both arms run every iteration with lane masks — the batched shape of
 "divergent" two-level traversal (no per-lane recursion, static shapes,
 one while_loop). Hits return the OBJECT triangle id plus the instance id;
 shading gathers object-space rows and applies the instance transform per
@@ -33,6 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core.mathutil import mat_vec
 from . import lbvh
 from .traverse import Hit, _aabb_hit, _safe_inv, _tri_intersect
 
@@ -220,8 +221,8 @@ def build_tlas(meshes, instances) -> tuple[TLAS, "np.ndarray", dict]:
 def _obj_ray(tlas, inst, ray_o, ray_d):
     inv = tlas.inst_inv[jnp.clip(inst, 0, tlas.num_instances - 1)]
     R = inv[:, :9].reshape(-1, 3, 3)
-    oo = jnp.einsum("nij,nj->ni", R, ray_o) + inv[:, 9:12]
-    dd = jnp.einsum("nij,nj->ni", R, ray_d)
+    oo = mat_vec(R, ray_o) + inv[:, 9:12]
+    dd = mat_vec(R, ray_d)
     return oo, dd
 
 

@@ -1,11 +1,13 @@
-"""Batched stackless BVH traversal.
+"""Batched stackless BVH traversal in plain JAX: the reference walk.
 
-TPU-native replacement for the hardware `TraceRay` calls
+Software replacement for the hardware `TraceRay` calls
 (shaders/hrtsystem/intersection.hlsl:18-47): all rays advance in lockstep
 through a single `lax.while_loop`, each lane holding its own node cursor.
 Skip links (`escape`) make the walk stackless; leaves intersect a small
 fixed triangle bundle (Möller–Trumbore) so the loop's per-iteration work is
-pure gathers + VPU math, which XLA vectorizes across the ray batch.
+pure gathers + elementwise math, which XLA vectorizes across the ray batch.
+This is the CPU path and the reference the CUDA kernel (kernels/
+traverse.cu) is checked against; accel/intersect.py picks between them.
 
 `closest_hit` mirrors Intersection::find (force-opaque closest hit);
 `any_hit` mirrors ShadowIntersection::hit (accept-first-hit, used by NEE

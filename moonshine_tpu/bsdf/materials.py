@@ -4,9 +4,9 @@ Behavioral parity target: shaders/hrtsystem/material.hlsl (GGX :20-67,
 Fresnel :71-123, Lambert :137-175, StandardPBR :179-270, PerfectMirror
 :313-332, Glass :345-393, MaterialVariant dispatch :395-487).
 
-The reference dispatches a tagged union per ray with a switch; on TPU we
+The reference dispatches a tagged union per ray with a switch; here we
 evaluate all four material models for every lane and select by type code —
-four VPU-friendly closed forms are cheaper than divergent control flow.
+four fused closed forms are cheaper than divergent control flow.
 All directions are in the local reflection frame (z = shading normal).
 `w_o` points away from the surface toward the viewer; `w_i` toward the
 light/next bounce.

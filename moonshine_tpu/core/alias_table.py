@@ -3,8 +3,7 @@
 Host-side O(n) Vose build (parity: engine/alias_table.zig:12-174) and a
 batched device-side sampler (parity: sampleAlias, utils/mappings.hlsl:114-126).
 Unlike the reference — which smuggles {count, weight_sum} into entry 0 of the
-GPU buffer — we keep the header as explicit fields; there is no buffer-layout
-constraint to work around on TPU.
+GPU buffer — we keep the header as explicit fields.
 """
 
 from __future__ import annotations

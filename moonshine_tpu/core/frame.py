@@ -12,7 +12,9 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from .mathutil import coordinate_system, dot, normalize, safe_normalize
+from .mathutil import (
+    coordinate_system, dot, mat_vec, normalize, safe_normalize,
+)
 
 
 class Frame(NamedTuple):
@@ -36,7 +38,7 @@ class Frame(NamedTuple):
     def transform(self, mat3x3) -> "Frame":
         """Apply a linear map to all basis vectors and renormalize
         (reflection_frame.hlsl:23-29). mat3x3: [...,3,3]."""
-        apply = lambda v: normalize(jnp.einsum("...ij,...j->...i", mat3x3, v))
+        apply = lambda v: normalize(mat_vec(mat3x3, v))
         return Frame(n=apply(self.n), s=apply(self.s), t=apply(self.t))
 
     def world_to_frame(self, v):

@@ -1,153 +1,42 @@
-"""MXU one-hot row gather.
+"""Row gathers shared by the integrator, the lights and the textures.
 
-XLA's TPU lowering of `table[ids]` runs at a few GB/s at renderer lane
-counts (measured ~20 ms for a [262k] gather of 32-float rows from a
-964-row table) — the path tracer's per-hit table fetches (triangle
-shading rows, material rows, texture-atlas texels, env-map texels) were
-the single largest cost after traversal. For small tables a gather is
-better expressed as a matmul: build a one-hot [N, T] selector in chunks
-and contract it with the [T, C] table on the MXU. With
-`precision=HIGHEST` (6-pass bf16) the selection is bit-exact vs the
-native gather (measured 0.0 abs error) at ~3x the speed, and the
-bilinear variant fuses a 4-tap filter into the same matmul by making the
-selector 4-hot with the filter weights.
-
-Cost is O(N*T), so this only wins while the table is small; the
-crossover vs XLA's gather is ~16k rows at 262k lanes. `gather_rows`
-falls back to the native gather above MM_MAX_ROWS and on non-TPU
-backends (CPU matmuls would make the tests crawl).
+Plain XLA gathers. Every form clamps out-of-range ids to the nearest valid
+row, so a masked lane's junk id (a miss's -1) reads a real row instead of
+wrapping around to the last one.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-
-# table sizes beyond this use the native gather. Isolated microbenchmarks
-# put the crossover near 16k rows at 262k lanes, but end-to-end renders
-# disagree hard: the mirror_glass rung ran 1.73 Mrays/s with its 4096-row
-# env table on the MXU path vs 2.76 with it on the native gather. Selector
-# cost scales with N*T regardless of how narrow the table is, so keep the
-# gate where every covered call site is an end-to-end verified win.
-MM_MAX_ROWS = 2048
-_CHUNK = 512
-
-
-def _use_mm(table_rows: int) -> bool:
-    return table_rows <= MM_MAX_ROWS and jax.default_backend() == "tpu"
-
-
-def _chunk_for(table_rows: int) -> int:
-    """Selector cost is O(N * round_up(T, chunk)): a 5-row material table
-    padded to the full 512 chunk pays 4x the compare/select VPU work of a
-    128-row pad. Chunk to the lane width (128) for small tables."""
-    return min(_CHUNK, -(-table_rows // 128) * 128)
-
-
-def _mm(table, make_selector_chunk, n, chunk):
-    """Sum over T-chunks of make_selector_chunk(t0) @ table[t0:t0+chunk]."""
-    T, C = table.shape
-    Tp = -(-T // chunk) * chunk
-    # narrow-storage tables (bf16 atlas) widen on the fly for the matmul
-    tab = jnp.pad(table.astype(jnp.float32), ((0, Tp - T), (0, 0)))
-    out = jnp.zeros((n, C), jnp.float32)
-    for t0 in range(0, Tp, chunk):
-        sel = make_selector_chunk(t0)
-        out = out + jax.lax.dot(sel, tab[t0 : t0 + chunk],
-                                precision="highest")
-    return out
 
 
 def gather_rows(table: jnp.ndarray, ids: jnp.ndarray) -> jnp.ndarray:
-    """table [T, C] f32, ids [N] int -> [N, C]. Out-of-range ids clamp to
-    the nearest valid row on both paths (matching `table[ids]` on TPU)."""
-    T = table.shape[0]
-    if not _use_mm(T):
-        return table[ids]
-    ids = jnp.clip(ids, 0, T - 1)
-    chunk = _chunk_for(T)
-    idf = ids.astype(jnp.float32)[:, None]  # exact: T <= 8192 < 2^24
-    cols = jnp.arange(chunk, dtype=jnp.float32)[None, :]
-
-    def selector(t0):
-        return (idf == cols + t0).astype(jnp.float32)
-
-    return _mm(table, selector, ids.shape[0], chunk)
-
-
-def shift_gather_rows(table: jnp.ndarray, base: jnp.ndarray, shifts,
-                      weights: jnp.ndarray, n_chunks: int) -> jnp.ndarray:
-    """Fused K-tap filtered gather where every tap is a fixed row shift of
-    one base id: out = sum_k weights[:, k] * table[base + shifts[k]].
-
-    This is the fast path for bilinear texture filters over wrap-border-
-    padded atlases (textures.py): the 4 taps of a bilinear fetch are
-    (+0, +1, +stride, +stride+1) of the top-left texel, so ONE one-hot
-    selector — built as bf16, which represents 0/1 exactly — contracts
-    against a channel-concatenation of 4 shifted table slices in a single
-    DEFAULT-precision matmul per chunk, and the filter weights apply
-    per-lane afterwards. Measured 9x faster than the 4-hot selector +
-    HIGHEST matmul formulation at 262k lanes on a 128-row bf16 table
-    (scripts/profile_gather2.py), and exact vs the reference sum for
-    bf16 tables.
-
-    Requirements: `table` rows beyond `n_chunks * 128` are tail padding of
-    at least max(shifts) + 128 rows (so the shifted chunk slices never
-    clamp), and every `base + shift` lands inside the padded region.
-    `shifts` entries may be traced scalars (e.g. a runtime row stride).
-    """
-    K = weights.shape[1]
-    if not _use_mm(n_chunks * 128):
-        out = 0.0
-        for k in range(K):
-            rows = table[base + shifts[k]].astype(jnp.float32)
-            out = out + weights[:, k:k + 1] * rows
-        return out
-    C = table.shape[1]
-    chunk = 128
-    basef = base.astype(jnp.float32)[:, None]  # exact below 2^24
-    cols = jnp.arange(chunk, dtype=jnp.float32)[None, :]
-    tab = table.astype(jnp.bfloat16)
-    out = jnp.zeros((base.shape[0], K * C), jnp.float32)
-    for i in range(n_chunks):
-        t0 = i * chunk
-        sel = (basef == cols + t0).astype(jnp.bfloat16)
-        cat = jnp.concatenate(
-            [jax.lax.dynamic_slice_in_dim(tab, t0 + shifts[k], chunk)
-             for k in range(K)], axis=1)
-        out = out + jax.lax.dot(sel, cat,
-                                preferred_element_type=jnp.float32)
-    acc = jnp.zeros((base.shape[0], C), jnp.float32)
-    for k in range(K):
-        acc = acc + weights[:, k:k + 1] * out[:, k * C:(k + 1) * C]
-    return acc
+    """table [T, C], ids [N] int -> [N, C]."""
+    return table[jnp.clip(ids, 0, table.shape[0] - 1)]
 
 
 def weighted_gather_rows(table: jnp.ndarray, ids: jnp.ndarray,
                          weights: jnp.ndarray) -> jnp.ndarray:
-    """Fused K-tap filtered gather: table [T, C], ids [N, K] int,
-    weights [N, K] -> sum_k weights[:, k] * table[ids[:, k]] as one
-    matmul chain (the bilinear texture filter as MXU work)."""
-    T = table.shape[0]
-    K = ids.shape[1]
-    if not _use_mm(T):
-        out = 0.0
-        for k in range(K):
-            out = out + weights[:, k : k + 1] * table[ids[:, k]].astype(
-                weights.dtype
-            )
-        return out
-    ids = jnp.clip(ids, 0, T - 1)
-    chunk = _chunk_for(T)
-    idf = ids.astype(jnp.float32)  # [N, K]
-    cols = jnp.arange(chunk, dtype=jnp.float32)[None, :]
+    """K-tap filtered gather: table [T, C], ids [N, K] int, weights [N, K]
+    -> sum_k weights[:, k] * table[ids[:, k]] (the bilinear env fetch)."""
+    out = 0.0
+    for k in range(ids.shape[1]):
+        rows = gather_rows(table, ids[:, k]).astype(weights.dtype)
+        out = out + weights[:, k:k + 1] * rows
+    return out
 
-    def selector(t0):
-        sel = jnp.zeros((ids.shape[0], chunk), jnp.float32)
-        for k in range(K):
-            sel = sel + jnp.where(
-                idf[:, k : k + 1] == cols + t0, weights[:, k : k + 1], 0.0
-            )
-        return sel
 
-    return _mm(table, selector, ids.shape[0], chunk)
+def shift_gather_rows(table: jnp.ndarray, base: jnp.ndarray, shifts,
+                      weights: jnp.ndarray) -> jnp.ndarray:
+    """K-tap filtered gather where every tap is a fixed row shift of one
+    base id: sum_k weights[:, k] * table[base + shifts[k]], in float32.
+
+    This is the bilinear texture fetch over wrap-border-padded atlases
+    (textures.py): the 4 taps of a bilinear fetch are (+0, +1, +stride,
+    +stride+1) of the top-left texel. `shifts` entries may be traced
+    scalars (the runtime row stride)."""
+    out = 0.0
+    for k, shift in enumerate(shifts):
+        rows = gather_rows(table, base + shift).astype(jnp.float32)
+        out = out + weights[:, k:k + 1] * rows
+    return out

@@ -87,13 +87,20 @@ def reflect(v, n):
     return 2.0 * dot(v, n) * n - v
 
 
+def mat_vec(m, v):
+    """[..., R, C] matrices times [..., C] vectors as float32 multiply-adds.
+
+    Not a dot: on the GPU XLA may run an f32 dot in TF32 (about 10
+    mantissa bits), enough to move a transformed ray origin to the wrong
+    side of a surface."""
+    return jnp.sum(m * v[..., None, :], axis=-1)
+
+
 def transform_point(mat3x4, p):
     """Apply a [...,3,4] affine transform to [...,3] points."""
-    return (
-        jnp.einsum("...ij,...j->...i", mat3x4[..., :, :3], p) + mat3x4[..., :, 3]
-    )
+    return mat_vec(mat3x4[..., :, :3], p) + mat3x4[..., :, 3]
 
 
 def transform_dir(mat3x4, d):
     """Apply the linear part of a [...,3,4] transform to [...,3] vectors."""
-    return jnp.einsum("...ij,...j->...i", mat3x4[..., :, :3], d)
+    return mat_vec(mat3x4[..., :, :3], d)

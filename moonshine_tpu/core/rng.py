@@ -1,6 +1,6 @@
 """Counter-based per-lane RNG.
 
-TPU-native equivalent of the reference's per-pixel PCG stream
+Batched equivalent of the reference's per-pixel PCG stream
 (reference: shaders/utils/random.hlsl:7-47). Each ray/pixel lane carries a
 single uint32 state; seeding hashes (sample_index, x, y) so every sample of
 every pixel draws from an independent, reproducible stream — independent of

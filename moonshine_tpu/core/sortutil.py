@@ -1,13 +1,9 @@
 """Multi-operand lane sorting.
 
-XLA's TPU lowering of a gather/scatter by a permutation runs at ~500 MB/s
-effective (measured ~3 ms per 262k-lane f32 array, scripts/profile_sort.py)
-— argsort + per-array gathers made every ray-coherence sort cost tens of
-milliseconds. `lax.sort` with payload operands moves ALL the payloads
-through the one sort network instead: 1 key + 9 f32 payloads is ~0.8 ms at
-262k lanes, ~30x cheaper than the gather formulation. Every lane
-reordering in the renderer (per-dispatch ray sorts, the per-bounce state
-resort) goes through here.
+`lax.sort` with payload operands moves every payload through one sort
+network, instead of an argsort followed by one permutation gather per
+array. The per-bounce state resort (integrator/path.py) goes through
+here.
 
 Restoring original order is the same primitive: carry a lane-index iota as
 one payload, then sort the outputs by it.

@@ -6,7 +6,7 @@ meshes, image/texture handles, materials, instances, sensors and lenses;
 callers mutate state (queued, like the reference's material-update queue)
 and call `render(sensor, lens)` to accumulate one progressive sample.
 
-TPU-native differences:
+Differences from the reference:
   * instead of in-place GPU buffer updates + TLAS refit, mutations mark the
     flattened device scene dirty; the next render re-freezes it (XLA's
     static-shape analogue of the reference's upload+refit path). Pure
@@ -27,16 +27,30 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
-from ..accel import traverse
+from ..accel.intersect import closest_hit
 from ..core.mathutil import INF_T
-from ..integrator.path import PathConfig, _closest
+from ..integrator.path import PathConfig
 from ..render.camera import LensArrays, generate_rays, pixel_uv
-from ..render.renderer import render_sample
+from ..render.renderer import render_sample, render_spp, use_staged
 from ..render.sensor import Sensor, accumulate
 from ..scene.types import Geometry, Instance, Lens, MaterialInfo, Mesh, StandardPBR
 from ..scene.world import World
+
+
+@jax.jit
+def _pick_hit(scene, lens_arrays, width, height, x, y):
+    """Closest hit of the camera ray through pixel (x, y), as one
+    dispatch (all four traced: one executable for every image size)."""
+    px = jnp.asarray(x, jnp.uint32)[None]
+    py = jnp.asarray(y, jnp.uint32)[None]
+    uv = pixel_uv(px, py, width, height,
+                  jnp.full((1, 2), 0.5, jnp.float32), False)
+    o, d = generate_rays(lens_arrays, width, height, uv,
+                         jnp.zeros((1, 2), jnp.float32))
+    return closest_hit(scene, o, d, INF_T)
 
 
 @dataclass
@@ -372,7 +386,15 @@ class Engine:
                 # render_sharded returns the spp-mean; accumulate takes sums
                 s = accumulate(s, img * spp, spp)
                 rays_parts.append(rays)
+            elif use_staged(h * w, cfg):
+                # large frames: one staged per-bounce dispatch chain for
+                # all spp (renderer.MAX_LANES)
+                img, rays = render_spp(scene, lens_arrays, h, w,
+                                       s.sample_count, spp, cfg, False)
+                s = accumulate(s, img, spp)
+                rays_parts.append(rays)
             else:
+                prev = None
                 for _ in range(spp):
                     img, rays = render_sample(
                         scene, lens_arrays, h, w, s.sample_count, cfg,
@@ -380,6 +402,12 @@ class Engine:
                     )
                     s = accumulate(s, img, 1)
                     rays_parts.append(rays)
+                    # the device runs dispatches in order, so a pick from
+                    # another thread waits for everything queued before
+                    # it: keep at most two samples in flight
+                    if wait and prev is not None:
+                        prev.block_until_ready()
+                    prev = img
             if not wait:
                 # no host sync at all — even reading the ray counter would
                 # block on the dispatched computation
@@ -412,14 +440,7 @@ class Engine:
         with self._lock:
             scene = self._ensure_scene()
             lens_arrays = LensArrays.from_lens(self.lenses[lens])
-            px = jnp.asarray([x], jnp.uint32)
-            py = jnp.asarray([y], jnp.uint32)
-            uv = pixel_uv(px, py, width, height,
-                          jnp.full((1, 2), 0.5, jnp.float32), False)
-            o, d = generate_rays(
-                lens_arrays, width, height, uv, jnp.zeros((1, 2), jnp.float32)
-            )
-            hit = _closest(scene, o, d, INF_T, None)
+            hit = _pick_hit(scene, lens_arrays, width, height, x, y)
             if int(hit.tri[0]) < 0:
                 return PickResult(-1, -1, -1, (0.0, 0.0))
             row = np.asarray(scene.tri_shade[hit.tri[0]])

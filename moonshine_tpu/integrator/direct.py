@@ -11,6 +11,7 @@ from dataclasses import dataclass
 
 import jax.numpy as jnp
 
+from ..accel.intersect import any_hit, closest_hit
 from ..bsdf import materials as B
 from ..core import rng as R
 from ..core.frame import Frame, cos_theta
@@ -19,8 +20,6 @@ from ..lights.envmap import sample_envmap
 from ..lights.mesh_lights import sample_mesh_lights
 from .path import (
     PathConfig,
-    _any_hit,
-    _closest,
     _decode_hit,
     _decode_material,
     _emissive_at,
@@ -42,7 +41,7 @@ def trace_direct(scene, ray_o, ray_d, rng_state, cfg: DirectConfig):
     rays = jnp.asarray(float(N), jnp.float32)
     rng = rng_state
 
-    hit = _closest(scene, ray_o, ray_d, INF_T, None)
+    hit = closest_hit(scene, ray_o, ray_d, INF_T)
     active = hit.is_hit
     miss = ~active
 
@@ -84,7 +83,7 @@ def trace_direct(scene, ray_o, ray_d, rng_state, cfg: DirectConfig):
                 position, face_forward(tri_frame.n, l_dir)
             )
             lane = active & (l_pdf > 0.0)
-            occluded = _any_hit(scene, shadow_o, l_dir, tmax, lane)
+            occluded = any_hit(scene, shadow_o, l_dir, tmax, lane)
             rays = rays + jnp.sum(lane)
             l_pdf = jnp.where(occluded, 0.0, l_pdf)
             w_i_ss = frame.world_to_frame(l_dir)

@@ -33,9 +33,7 @@ def sample_mesh_lights(scene, position_ws, rand2):
     Returns (dir_ws [N,3], light_pos [N,3], light_normal [N,3],
              tri_id [N] i32, bary [N,2], pdf [N], light_row [N,25]).
     light_row is the drawn emitter's packed row (EmitterTable.rows
-    layout) — callers reuse it for the emissive lookup. Gathering from
-    the E-row emitter table instead of the T-row tri_shade table keeps
-    the one-hot selector tiny (E << T in real scenes).
+    layout) — callers reuse it for the emissive lookup.
     pdf == 0 when there are no emitters (light.hlsl:134-136).
     """
     em = scene.emitters

@@ -6,8 +6,8 @@ sample- and pixel-parallel, so we shard the dispatch over a 2D device mesh:
   * "dp" — pixel-row tiles: each device traces its own block of rows
     (zero communication; the image comes out row-sharded)
   * "sp" — sample ranges: devices trace disjoint sample indices of the
-    same pixels and psum-average at the end (one small collective over ICI,
-    the running-mean commutes — main.hlsl:42-51)
+    same pixels and psum-average at the end (one small collective, the
+    running-mean commutes — main.hlsl:42-51)
 
 Because RNG streams are keyed by (global sample index, x, y), any
 (sp, dp) factorization produces the same image up to f32 summation order —
@@ -66,7 +66,7 @@ def _sharded_step(scene, lens, base_sample, *, mesh: Mesh, height: int,
     """Module-level jitted shard_map step. base_sample is a TRACED uint32
     so progressive frames (Engine.render with an advancing sample_count)
     reuse one cached executable instead of re-lowering the whole sharded
-    bounce graph per frame (round-4 advisor finding)."""
+    bounce graph per frame."""
     sp = mesh.shape["sp"]
     dp = mesh.shape["dp"]
     rows = height // dp
@@ -124,16 +124,13 @@ def render_sharded(scene, lens: LensArrays, height: int, width: int,
     rays traced). height % dp == 0 and spp % sp == 0 required.
 
     staged: use the per-bounce staged integrator (trace_paths_staged)
-    inside each shard instead of the fused bounce graph. Default: staged
-    when a device's local dispatch exceeds the fused-path lane ceiling
-    (renderer.MAX_LANES) — the same large-frame switch the single-device
-    renderer makes, so a 1080p frame sharded 2 ways composes with the
-    staged path instead of hitting the >1M-lane XLA cliff. Deep bounce
-    budgets (> 8 bounces) can't use staging here: inside the traced
-    shard_map its per-bounce host dispatch can't apply and the Python
-    loop would inline max_bounces+2 segments into one program, so they
-    run the fused while_loop path instead (early exit, one-segment live
-    set — round-4 advisor finding)."""
+    inside each shard instead of the fused bounce graph. Default: the
+    same switch the single-device renderer makes on a device's local
+    lane count (renderer.use_staged). Deep bounce budgets never stage:
+    inside the traced shard_map the per-bounce host dispatch can't apply
+    and the Python loop would inline max_bounces+2 segments into one
+    program, so they run the fused while_loop path instead (early exit,
+    one-segment live set)."""
     sp = mesh.shape["sp"]
     dp = mesh.shape["dp"]
     if height % dp or spp % sp:
@@ -142,10 +139,10 @@ def render_sharded(scene, lens: LensArrays, height: int, width: int,
             f"spp ({spp}) by sp ({sp})"
         )
     rows = height // dp
+    from ..render.renderer import MAX_STAGED_SEGMENTS, use_staged
     if staged is None:
-        from ..render.renderer import MAX_LANES
-        staged = rows * width > MAX_LANES
-    if staged and cfg.max_bounces + 2 > 10:
+        staged = use_staged(rows * width, cfg)
+    if staged and cfg.max_bounces + 2 > MAX_STAGED_SEGMENTS:
         staged = False
         cfg = replace(cfg, unroll=False)
     image, rays = _sharded_step(

@@ -37,7 +37,7 @@ class IntervalLogger:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="moonshine-offline",
-        description="TPU-native headless path tracer",
+        description="headless path tracer",
     )
     p.add_argument("glb", help="binary glTF scene")
     p.add_argument("skybox", help="equirectangular EXR environment map")

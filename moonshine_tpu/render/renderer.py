@@ -19,13 +19,12 @@ from .camera import LensArrays, generate_rays, pixel_uv
 from .sensor import Sensor, accumulate
 
 
-# 2D tile shape for lane ordering: one 8192-lane traversal packet per
-# 64x128-pixel tile. Lanes keep the same pixel for the whole trace, so
-# tile-major order makes every dispatch's blocks cover a compact image
-# region instead of a full-width scanline strip — packet unions (and with
-# them traversal cost) track ray-origin locality across all bounces.
-# Pure reshape/transpose both ways; RNG is (sample, x, y)-keyed, so the
-# image is bit-identical to scanline order.
+# 2D tile shape for lane ordering. Lanes keep the same pixel for the whole
+# trace, so tile-major order makes neighbouring lanes (a GPU warp, a
+# thread block) cover a compact image region instead of a full-width
+# scanline strip, and their rays stay coherent across bounces. Pure
+# reshape/transpose both ways; RNG is (sample, x, y)-keyed, so the image
+# is bit-identical to scanline order.
 TILE_H, TILE_W = 64, 128
 
 
@@ -66,15 +65,22 @@ def _pixel_coords(height: int, width: int):
     return tiled(ys), tiled(xs), unpack
 
 
-# lanes per fused-graph dispatch. Past ~1M lanes the fused bounce graph's
-# live state (tens of arrays x lanes x unrolled segments) exceeds what XLA
-# can schedule without collapsing (measured >10x throughput cliff between
-# 1M and 2M lanes on the 184k room scene). Larger frames switch to the
-# STAGED path: one donated device dispatch per bounce
-# (path.trace_paths_staged), whose live set is one segment deep at any
-# lane count. RNG is (sample, x, y)-keyed, so the two paths produce
-# identical images.
+# lanes per fused-graph dispatch. The fused bounce graph keeps the live
+# state of every unrolled segment (tens of arrays x lanes x segments);
+# larger frames switch to the STAGED path: one donated device dispatch
+# per bounce (path.trace_paths_staged), whose live set is one segment
+# deep at any lane count. RNG is (sample, x, y)-keyed, so the two paths
+# produce identical images. The value is not yet derived for the GPU.
 MAX_LANES = 512 * 1024
+# the staged path runs max_bounces + 2 host dispatches with no early exit,
+# so deep bounce budgets keep the fused while_loop (which exits when
+# every lane is dead) at any lane count
+MAX_STAGED_SEGMENTS = 10
+
+
+def use_staged(lanes: int, cfg: PathConfig) -> bool:
+    """Whether a dispatch of `lanes` lanes takes the staged path."""
+    return lanes > MAX_LANES and cfg.max_bounces + 2 <= MAX_STAGED_SEGMENTS
 
 
 @partial(jax.jit, static_argnames=("height", "width", "cfg", "flip_image",
@@ -164,12 +170,10 @@ def _staged_accum(acc, rays_acc, radiance_flat, rays, height: int,
     return acc + unpack(radiance_flat), rays_acc + rays
 
 
-# lane target for one staged dispatch when batching samples. Measured on
-# the 184k room rung: 262k lanes run at 1.64 Mrays/s, the same scene at
-# 2.07M lanes (1080p) at 2.38 — bigger sorted dispatches give each
-# 2048-lane packet block a spatially tighter union. Batching consecutive
-# samples onto the lane axis buys the same amortization at small
-# resolutions.
+# lane target for one staged dispatch when batching samples: consecutive
+# samples share the lane axis up to this many lanes, so small frames
+# amortize each dispatch like a large one. The value is not yet derived
+# for the GPU.
 STAGE_TARGET_LANES = 2 * 1024 * 1024
 
 
@@ -177,8 +181,7 @@ def _render_spp_staged(scene, lens, height, width, start_index, spp, cfg,
                        flip_image, batch: int | None = None):
     """Large-frame / batched path: host-orchestrated per-bounce dispatches
     (see MAX_LANES). Samples are packed onto the lane axis up to
-    STAGE_TARGET_LANES per dispatch so the per-bounce coherence resort and
-    packet unions see the largest possible lane pool; RNG is
+    STAGE_TARGET_LANES per dispatch; RNG is
     (sample, x, y)-keyed so the image is bit-identical to per-sample
     rendering."""
     lanes = height * width
@@ -205,17 +208,17 @@ def render_spp(scene, lens: LensArrays, height: int, width: int,
                flip_image: bool = True):
     """Trace spp samples, summing radiance on-device.
 
-    Images at or below MAX_LANES pixels run as ONE device dispatch
-    (lax.fori_loop over render_sample — the analogue of the reference
-    recording all spp trace calls into a single command buffer,
-    offline/main.zig:131-165). Larger frames run through the staged
-    per-bounce path (see MAX_LANES) as one full-frame lane batch.
+    Images at or below MAX_LANES pixels, and deep bounce budgets, run as
+    ONE device dispatch (lax.fori_loop over render_sample — the analogue
+    of the reference recording all spp trace calls into a single command
+    buffer, offline/main.zig:131-165). Larger frames run through the
+    staged per-bounce path (see use_staged) as one full-frame lane batch.
     Returns (radiance_sum [H,W,3], rays)."""
-    if height * width <= MAX_LANES:
-        return _render_spp_band(scene, lens, height, width, 0, start_index,
-                                spp, cfg, flip_image, band_h=height)
-    return _render_spp_staged(scene, lens, height, width, start_index,
-                              spp, cfg, flip_image)
+    if use_staged(height * width, cfg):
+        return _render_spp_staged(scene, lens, height, width, start_index,
+                                  spp, cfg, flip_image)
+    return _render_spp_band(scene, lens, height, width, 0, start_index,
+                            spp, cfg, flip_image, band_h=height)
 
 
 def render(scene, lens, height, width, spp, cfg: PathConfig,

@@ -15,19 +15,19 @@ conversion rules of World.fromGlb (World.zig:233-363), gltfMaterialToMaterial
   * Y-up glTF -> Z-up world: permute global-transform rows (0, 2, 1)
   * camera = first camera node; origin/forward/up from its Z-up transform
 
-PNG decode goes through PIL instead of zigimg; the parser itself is
+PNG decode goes through io/png.py instead of zigimg; the parser itself is
 self-contained (GLB container, accessors, node hierarchy).
 """
 
 from __future__ import annotations
 
-import io as _io
 import json
 import struct
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..io import png
 from .types import (
     Geometry,
     Glass,
@@ -154,8 +154,6 @@ class Glb:
     def image_rgba(self, image_index: int) -> np.ndarray:
         """Decode an embedded image to float [h,w,4] in [0,1] (no transfer
         function applied)."""
-        from PIL import Image
-
         img_def = self.json["images"][image_index]
         if "bufferView" in img_def:
             bv = self.json["bufferViews"][img_def["bufferView"]]
@@ -165,8 +163,7 @@ class Glb:
             raw = _read_uri(img_def["uri"], self.base_dir)
         else:
             raise ValueError("glTF image has neither bufferView nor uri")
-        img = Image.open(_io.BytesIO(raw)).convert("RGBA")
-        return np.asarray(img, np.float32) / 255.0
+        return png.decode(raw)
 
     def texture_image(self, texture_index: int) -> np.ndarray:
         tex = self.json["textures"][texture_index]

@@ -4,8 +4,8 @@ The reference binds up to 1024 independently-sized images through a
 bindless descriptor array and samples five of them per hit (color,
 metalness, roughness, emissive, normal — material.hlsl loads + getEmissive
 + getTextureFrame). Five separate bilinear lookups would be ~25 gathers per
-bounce on TPU, so maps are packed channel-wise into block images fetched
-with one bilinear gather each. Two blocks per material, sized
+bounce, so maps are packed channel-wise into block images fetched with one
+bilinear gather each. Two blocks per material, sized
 independently so a big base-color map doesn't force big storage for maps
 that are constants:
 
@@ -16,8 +16,8 @@ that are constants:
 
 Differently-sized maps inside one block are bilinear-upsampled to the
 largest (a build-time prefilter the reference's per-image samplers don't
-need). Storage is bfloat16 — TPU-native, and >= the 8-bit precision of
-typical PNG sources — so a 2048^2 fully-textured PBR material costs
+need). Storage is bfloat16 — >= the 8-bit precision of typical PNG
+sources — so a 2048^2 fully-textured PBR material costs
 2048^2 * 8ch * 2B = 64 MB instead of the 256 MB a single 16-channel f32
 block did (the reference's native-size RGBA8 images would be ~48 MB for
 the same three 2048^2 maps).
@@ -47,12 +47,8 @@ EMISSIVE = slice(0, 3)
 
 
 class AtlasPlane(NamedTuple):
-    data: jnp.ndarray  # [H*W + tail, 8] bf16 flat rows (see chunks_token)
+    data: jnp.ndarray  # [H*W, 8] bf16 flat rows
     width: jnp.ndarray  # scalar i32 row stride
-    # shape-encoded chunk count for the shared-selector shift gather:
-    # ceil(H*W / 128) zeros. data carries >= width + 1 + 128 tail-padding
-    # rows past H*W so the gather's shifted chunk slices never clamp.
-    chunks_token: jnp.ndarray
 
 
 class MaterialAtlas(NamedTuple):
@@ -65,7 +61,7 @@ class MaterialAtlas(NamedTuple):
     # per-plane constancy, shape-encoded ([0] = every block in the plane
     # is a 1x1 constant) so shading can branch statically under jit: a
     # constant plane's values live in the packed material row and its
-    # matmul-gather chain is skipped entirely per shade. Emissive planes
+    # gathers are skipped entirely per shade. Emissive planes
     # are constant in most textured scenes, and fully-constant scenes
     # (procedural benches, furnace tests) skip the atlas altogether.
     bsdf_token: jnp.ndarray
@@ -146,8 +142,9 @@ def _pack_plane(blocks) -> tuple[AtlasPlane, np.ndarray]:
     Each block is stored with a one-texel wrap border on its right/bottom
     edges (row h = row 0, col w = col 0), so a bilinear fetch's four taps
     are always the fixed row shifts (+0, +1, +stride, +stride+1) of the
-    top-left tap — the precondition for gather.shift_gather_rows' shared
-    one-hot selector. rects stay logical (x, y, w, h)."""
+    top-left tap — the precondition for gather.shift_gather_rows. The
+    borders lie inside the plane, so no tap reads past it. rects stay
+    logical (x, y, w, h)."""
     max_w = max(b.shape[1] for b in blocks) + 1
     atlas_w = max(_next_pow2(max_w), 16)
     total = sum((b.shape[0] + 1) * (b.shape[1] + 1) for b in blocks)
@@ -174,15 +171,9 @@ def _pack_plane(blocks) -> tuple[AtlasPlane, np.ndarray]:
         data[y + h, x : x + w] = b[0]  # bottom wrap border
         data[y : y + h, x + w] = b[:, 0]  # right wrap border
         data[y + h, x + w] = b[0, 0]
-    flat = data.reshape(-1, BLOCK_CHANNELS)
-    rows = len(flat)
-    tail = atlas_w + 1 + 128
-    flat = np.concatenate(
-        [flat, np.zeros((tail, BLOCK_CHANNELS), np.float32)])
     plane = AtlasPlane(
-        data=jnp.asarray(flat, jnp.bfloat16),
+        data=jnp.asarray(data.reshape(-1, BLOCK_CHANNELS), jnp.bfloat16),
         width=jnp.asarray(atlas_w, jnp.int32),
-        chunks_token=jnp.zeros((-(-rows // 128),), jnp.uint8),
     )
     return plane, rects
 
@@ -260,9 +251,8 @@ def sample_material_block(plane: AtlasPlane, rect: jnp.ndarray,
 
     Blocks carry wrap borders (_pack_plane), so only the top-left tap
     wraps; the other three taps are the fixed shifts (+1, +stride,
-    +stride+1) and the whole filter runs as a shared-selector shift
-    gather (gather.shift_gather_rows — one bf16 one-hot selector, one
-    matmul per 128-row chunk).
+    +stride+1) and the whole filter is one shift gather
+    (gather.shift_gather_rows).
     """
     x0 = rect[..., 0].astype(jnp.int32)
     y0 = rect[..., 1].astype(jnp.int32)
@@ -286,7 +276,5 @@ def sample_material_block(plane: AtlasPlane, rect: jnp.ndarray,
         [(1 - fu1) * (1 - fv1), fu1 * (1 - fv1), (1 - fu1) * fv1, fu1 * fv1],
         axis=-1,
     )
-    return shift_gather_rows(
-        plane.data, base, (0, 1, stride, stride + 1), weights,
-        n_chunks=plane.chunks_token.shape[0],
-    ).astype(jnp.float32)
+    return shift_gather_rows(plane.data, base, (0, 1, stride, stride + 1),
+                             weights)

@@ -7,7 +7,7 @@ import bpy
 
 class MoonshineTpuRenderEngine(bpy.types.HydraRenderEngine):
     bl_idname = "HYDRA_MOONSHINE_TPU"
-    bl_label = "Moonshine TPU"
+    bl_label = "Moonshine (JAX)"
 
     bl_use_preview = True
     bl_use_gpu_context = False

@@ -27,8 +27,8 @@ void HdMoonshineTpuPlugin::DeleteRenderDelegate(
 }
 
 bool HdMoonshineTpuPlugin::IsSupported(bool) const {
-    /* the engine renders on whatever device JAX selected (TPU or CPU);
-     * no local GPU requirement */
+    /* the engine renders on whatever device JAX selected (GPU or CPU);
+     * JAX_PLATFORMS pins it */
     return true;
 }
 

@@ -4,8 +4,9 @@
  * engine object plus u32 handles for meshes/images/materials/instances/
  * sensors/lenses, driven by a host application (USD Hydra delegate,
  * Blender add-on, game editor). The implementation (engine_shim.cpp)
- * embeds a Python interpreter running the TPU engine; callers need no
- * Python of their own.
+ * embeds a Python interpreter running the JAX engine; callers need no
+ * Python of their own. The engine runs on the device JAX picks; set
+ * JAX_PLATFORMS in the host's environment to pin one.
  */
 
 #pragma once

@@ -30,10 +30,9 @@ from fixtures import icosphere
 
 
 def jnp_traversal(scene):
-    """Drop the wide BVH so trace_paths uses the jnp traversal — the Pallas
-    packet kernel in interpret mode is far too slow for CPU furnace renders
-    (its correctness is covered by test_packet.py)."""
-    return scene._replace(wide=None)
+    """Drop the CUDA kernel's records: the scene then walks accel/
+    traverse.py on every backend (on the CPU it does so anyway)."""
+    return scene._replace(packed=None)
 
 
 def furnace_world(albedo=1.0, emissive=0.0, interior=False, sampled=False,
@@ -128,9 +127,10 @@ class TestFurnace:
 
 class TestFurnacePacketPath:
     def test_white_furnace_through_packet_kernel(self):
-        # same physics as test 1 but through the Pallas packet traversal
-        # (interpret mode on CPU), small enough to stay fast
+        # same physics as test 1 but with the kernel's records in the
+        # scene, through the traversal entry point (accel/intersect.py)
         scene = furnace_world(albedo=1.0, subdivisions=1).build()
+        assert scene.packed is not None
         cfg = PathConfig(max_bounces=16, env_samples_per_bounce=0,
                          mesh_samples_per_bounce=0)
         sensor, _ = render(scene, outside_lens(), 8, 8, spp=2, cfg=cfg)

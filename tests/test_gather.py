@@ -1,21 +1,10 @@
-"""core/gather.py: MXU one-hot gather correctness.
-
-The mm selector path normally only engages on TPU (gate in _use_mm), but
-it is pure jnp — these tests force it on CPU so the selection/weighting
-logic is covered by CI. On-chip exactness of the precision=HIGHEST dot
-was verified separately (0.0 abs error at 262k lanes, see BASELINE.md).
-"""
+"""core/gather.py: the row gathers behind hit decode, lights and textures."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from moonshine_tpu.core import gather as G
-
-
-@pytest.fixture
-def force_mm(monkeypatch):
-    monkeypatch.setattr(G, "_use_mm", lambda rows: True)
 
 
 def _table(t=300, c=7, seed=0):
@@ -27,28 +16,15 @@ class TestGatherRows:
     def test_fallback_matches_indexing(self):
         tab = _table()
         ids = jnp.asarray([0, 5, 299, 5, 17], jnp.int32)
-        assert G._use_mm(10**9) is False  # huge tables always fall back
         np.testing.assert_array_equal(G.gather_rows(tab, ids), tab[ids])
 
-    def test_mm_matches_indexing(self, force_mm):
+    def test_out_of_range_clamps(self):
+        """Out-of-range ids read the nearest valid row; a miss lane's -1
+        must not wrap around to the last row."""
         tab = _table()
-        rng = np.random.default_rng(1)
-        ids = jnp.asarray(rng.integers(0, 300, size=500), jnp.int32)
-        np.testing.assert_array_equal(G.gather_rows(tab, ids), tab[ids])
-
-    def test_mm_multi_chunk(self, force_mm):
-        tab = _table(t=G._CHUNK + 37)
-        ids = jnp.asarray([0, G._CHUNK - 1, G._CHUNK, G._CHUNK + 36],
-                          jnp.int32)
-        np.testing.assert_array_equal(G.gather_rows(tab, ids), tab[ids])
-
-    def test_mm_out_of_range_clamps(self, force_mm):
-        """Both paths clamp out-of-range ids like TPU `table[ids]` — the
-        MXU path must not silently diverge (returns were once zero rows)."""
-        tab = _table()
-        out = G.gather_rows(tab, jnp.asarray([-3, 300, 1000], jnp.int32))
+        out = G.gather_rows(tab, jnp.asarray([-3, -1, 300, 1000], jnp.int32))
         np.testing.assert_array_equal(
-            out, np.asarray(tab)[[0, 299, 299]]
+            out, np.asarray(tab)[[0, 0, 299, 299]]
         )
 
 
@@ -68,14 +44,7 @@ class TestWeightedGatherRows:
         w = jnp.asarray(rng.random((64, 4)).astype(np.float32))
         self._check(tab, ids, w)
 
-    def test_mm(self, force_mm):
-        tab = _table()
-        rng = np.random.default_rng(3)
-        ids = jnp.asarray(rng.integers(0, 300, size=(64, 4)), jnp.int32)
-        w = jnp.asarray(rng.random((64, 4)).astype(np.float32))
-        self._check(tab, ids, w)
-
-    def test_mm_duplicate_taps_accumulate(self, force_mm):
+    def test_duplicate_taps_accumulate(self):
         """Bilinear wrap can land two taps on the same texel; their
         weights must add."""
         tab = _table()
@@ -87,39 +56,36 @@ class TestWeightedGatherRows:
 
 
 class TestShiftGatherRows:
-    """Shared-selector shift gather (the bilinear fast path)."""
+    """Fixed-shift taps of one base id (the bilinear atlas fetch)."""
 
-    def _check(self, tab, base, shifts, w, n_chunks):
+    def _check(self, tab, base, shifts, w):
         ref = sum(
             np.asarray(w)[:, k : k + 1]
-            * np.asarray(tab, np.float32)[np.asarray(base) + s]
+            * np.asarray(tab, np.float32)[np.asarray(base) + int(s)]
             for k, s in enumerate(shifts)
         )
-        got = G.shift_gather_rows(tab, base, shifts, w, n_chunks)
+        got = G.shift_gather_rows(tab, base, shifts, w)
+        assert got.dtype == jnp.float32
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-4)
 
     def _fixture(self, rows=300, c=7, n=96, seed=4):
         rng = np.random.default_rng(seed)
         shifts = (0, 1, 17, 18)
-        tail = 18 + 128
         tab = jnp.asarray(
-            rng.random((rows + tail, c)).astype(np.float32), jnp.bfloat16
+            rng.random((rows + 18, c)).astype(np.float32), jnp.bfloat16
         )
         base = jnp.asarray(rng.integers(0, rows, size=n), jnp.int32)
         w = jnp.asarray(rng.random((n, 4)).astype(np.float32))
-        return tab, base, shifts, w, -(-rows // 128)
+        return tab, base, shifts, w
 
     def test_fallback(self):
         self._check(*self._fixture())
 
-    def test_mm(self, force_mm):
-        self._check(*self._fixture())
-
-    def test_mm_traced_shift(self, force_mm):
+    def test_traced_shift(self):
         """Shift entries may be traced scalars (the runtime row stride)."""
-        tab, base, shifts, w, n_chunks = self._fixture()
+        tab, base, shifts, w = self._fixture()
         shifts = (0, 1, jnp.asarray(17, jnp.int32), jnp.asarray(18, jnp.int32))
-        self._check(tab, base, shifts, w, n_chunks)
+        self._check(tab, base, shifts, w)
 
 
 class TestMaterialBlockBilinear:
@@ -138,12 +104,12 @@ class TestMaterialBlockBilinear:
         return (t00 * (1 - fu) * (1 - fv) + t10 * fu * (1 - fv)
                 + t01 * (1 - fu) * fv + t11 * fu * fv)
 
-    @pytest.mark.parametrize("use_mm", [False, True])
-    def test_wrap_bilinear(self, use_mm, monkeypatch):
+    # one case, the plain gather; its id dates from a second, matmul-based
+    # gather path that no longer exists
+    @pytest.mark.parametrize("use_mm", [False])
+    def test_wrap_bilinear(self, use_mm):
         from moonshine_tpu.scene import textures as TX
 
-        if use_mm:
-            monkeypatch.setattr(G, "_use_mm", lambda rows: True)
         rng = np.random.default_rng(5)
         img = rng.random((4, 6, 3)).astype(np.float32)
         b = TX.MaterialBlockBuilder()

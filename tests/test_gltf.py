@@ -1,12 +1,10 @@
 """GLB ingest: parser, material classification, Z-up conversion, camera,
 and a Cornell-box render through the offline CLI."""
 
-import io
-
 import numpy as np
 import pytest
-from PIL import Image
 
+from moonshine_tpu.io import png
 from moonshine_tpu.scene import gltf
 from moonshine_tpu.scene.types import Glass, Lambert, Mirror, StandardPBR
 from moonshine_tpu.scene.world import TYPE_LAMBERT
@@ -15,10 +13,8 @@ from glb_builder import build_glb, cornell_box_glb, quad
 
 
 def png_bytes(rgb, size=(2, 2)):
-    img = Image.new("RGB", size, tuple(int(c * 255) for c in rgb))
-    buf = io.BytesIO()
-    img.save(buf, "PNG")
-    return buf.getvalue()
+    px = np.asarray([int(c * 255) for c in rgb], np.uint8)
+    return png.encode(np.broadcast_to(px, (size[1], size[0], 3)))
 
 
 class TestParser:

@@ -1,8 +1,9 @@
-"""Pinned-image drift tests (VERDICT round-2 item 6).
+"""Pinned-image drift tests.
 
 Renders small deterministic versions of ladder rungs 1-3 (furnace,
 Cornell, mirror+glass HDR env) and compares against EXR goldens committed
-under tests/goldens/. Perf work that silently changes images (traversal
+under tests/goldens/ (rendered on the CPU, whose traversal is
+accel/traverse.py). Perf work that silently changes images (traversal
 tie-breaks, RNG stream shifts, shading reorders) fails here first.
 
 Regenerate intentionally after a *reviewed* behavior change with:

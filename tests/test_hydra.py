@@ -35,7 +35,7 @@ class TestHydraCore:
                             "hydra/test_hydra_core"],
                            capture_output=True, text=True)
         assert r.returncode == 0, r.stderr[-500:]
-        env = dict(os.environ, PYTHONPATH=str(ROOT), MSN_PLATFORM="cpu")
+        env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
         r = subprocess.run([str(HYDRA / "test_hydra_core")],
                            capture_output=True, text=True, env=env,
                            timeout=280)

@@ -3,14 +3,16 @@ rebuilding topology; material/background edits swap only their stage.
 
 Parity surface: Accel.zig:567-679 (recordUpdateSingleTransform,
 updateVisibility, recordRebuild = TLAS refit) and hydra.zig:225-311 (the
-per-frame instance-update path). The TPU twist under test: every edit kind
+per-frame instance-update path). The twist under test: every edit kind
 keeps array shapes identical, so jitted render functions never recompile.
 """
 
 import numpy as np
 import pytest
 
-from moonshine_tpu.accel.packet import closest_hit_packet
+import jax
+
+from moonshine_tpu.accel.packed import closest_hit_np
 from moonshine_tpu.accel.traverse import closest_hit
 from moonshine_tpu.core.mathutil import INF_T
 from moonshine_tpu.scene.types import (
@@ -59,10 +61,10 @@ class TestIncrementalBuild:
         assert s2.materials.packed is s1.materials.packed
         assert s2.mat_atlas is s1.mat_atlas
         # shapes identical (no re-jit), geometry moved
-        assert s2.wide.nodes.shape == s1.wide.nodes.shape
+        assert s2.packed.nodes.shape == s1.packed.nodes.shape
         assert s2.tri_shade.shape == s1.tri_shade.shape
-        assert not np.allclose(np.asarray(s2.wide.nodes),
-                               np.asarray(s1.wide.nodes))
+        assert not np.array_equal(np.asarray(s2.packed.nodes),
+                                  np.asarray(s1.packed.nodes))
 
     def test_refit_matches_full_rebuild_hits(self):
         w, a, b = two_sphere_world()
@@ -108,9 +110,12 @@ class TestIncrementalBuild:
         o = np.float32([[-2, 0, 5], [2, 0, 5], [0, 0, 5]])
         d = np.tile(np.float32([0, 0, -1]), (3, 1))
         ref = closest_hit(scene.bvh, scene.tri_verts_sorted, o, d, INF_T)
-        pk = closest_hit_packet(scene.wide, o, d, INF_T)
-        np.testing.assert_allclose(np.asarray(pk.t), np.asarray(ref.t),
-                                   rtol=1e-5)
+        # the CUDA kernel's records after the refit, walked by its twin
+        pk_t, pk_tri, _, _ = closest_hit_np(
+            jax.device_get(scene.packed), np.asarray(scene.bvh.tri_order),
+            o, d, INF_T)
+        np.testing.assert_allclose(pk_t, np.asarray(ref.t), rtol=1e-5)
+        np.testing.assert_array_equal(pk_tri, np.asarray(ref.tri))
 
     def test_material_edit_rebuilds_only_materials(self):
         w, a, b = two_sphere_world()
@@ -118,7 +123,7 @@ class TestIncrementalBuild:
         w.update_material(0, MaterialInfo(variant=Lambert(color=(1, 0, 0))))
         s2 = w.build()
         assert s2.bvh is s1.bvh
-        assert s2.wide is s1.wide
+        assert s2.packed is s1.packed
         assert s2.env is s1.env
         assert s2.materials.packed is not s1.materials.packed
         # tri_shade is refolded (material cols 32:48 ride in it), but the
@@ -139,7 +144,7 @@ class TestIncrementalBuild:
         w.set_background(sky)
         s2 = w.build()
         assert s2.bvh is s1.bvh
-        assert s2.wide is s1.wide
+        assert s2.packed is s1.packed
         assert s2.materials.packed is s1.materials.packed
         assert s2.env is not s1.env
 

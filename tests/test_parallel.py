@@ -14,9 +14,8 @@ from test_furnace import furnace_world, outside_lens
 
 @pytest.fixture(scope="module")
 def setup():
-    # the full device scene, wide BVH included: the sharded tests must run
-    # the production packet kernels (interpret-mode Pallas on the CPU
-    # mesh), not the jnp fallback — round-3 verdict weak #3
+    # the full device scene, kernel records included: the sharded tests
+    # run the production traversal entry point under shard_map
     scene = furnace_world(albedo=0.6).build()
     lens = outside_lens()
     # unroll=False: ten unrolled bounce segments under an 8-device shard_map

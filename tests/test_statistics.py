@@ -2,8 +2,9 @@
 
 The reference wishes for "proper statistical tests ... of the mean/variance
 of images" (README TODO); this file provides them, plus cross-validation
-between the two traversal backends (Pallas packet vs jnp while_loop) —
-valuable because they share no intersection code.
+between the two traversal implementations (the CUDA kernel's records,
+walked by their numpy twin, vs the jnp while_loop) — valuable because
+they share no intersection code.
 """
 
 import numpy as np
@@ -30,17 +31,31 @@ CFG = PathConfig(max_bounces=4, env_samples_per_bounce=0,
 
 class TestCrossValidation:
     def test_packet_matches_jnp_traversal(self, cornell):
+        """The scene's kernel records, walked by the numpy twin of the
+        CUDA loop, against the traversal entry point (the jnp walk on the
+        CPU) on the cornell's camera rays and on rays leaving the hits."""
+        import jax
+
+        from moonshine_tpu.accel import intersect, packed
+        from moonshine_tpu.render.camera import LensArrays
+        from moonshine_tpu.render.renderer import _sample_rays
+
         scene, lens = cornell
-        sensor_p, _ = render(scene, lens, 24, 24, spp=8, cfg=CFG)
-        scene_jnp = scene._replace(wide=None)
-        sensor_j, _ = render(scene_jnp, lens, 24, 24, spp=8, cfg=CFG)
-        a = np.asarray(sensor_p.image)
-        b = np.asarray(sensor_j.image)
-        # identical RNG streams; only intersection arithmetic differs.
-        # tiny t differences can flip rare grazing samples, so compare
-        # robustly: almost all pixels bitwise-close
-        close = np.isclose(a, b, atol=1e-4).mean()
-        assert close > 0.995, f"only {close:.4f} of pixels match"
+        o, d, _ = _sample_rays(LensArrays.from_lens(lens), 24, 24, 0, True)
+        h = intersect.closest_hit(scene, o, d, 1e12)
+        p = np.asarray(o + h.t[:, None] * d * 0.999)
+        d2 = np.asarray(-d)  # back out of the box through the hit point
+        recs = jax.device_get(scene.packed)
+        order = np.asarray(scene.bvh.tri_order)
+        for ro, rd in ((np.asarray(o), np.asarray(d)), (p, d2)):
+            want = intersect.closest_hit(scene, ro, rd, 1e12)
+            t, tri, _, _ = packed.closest_hit_np(recs, order, ro, rd, 1e12)
+            # tiny t differences may flip a rare edge tie
+            assert (tri == np.asarray(want.tri)).mean() > 0.995
+            np.testing.assert_allclose(t, np.asarray(want.t), rtol=1e-5)
+            np.testing.assert_array_equal(
+                packed.any_hit_np(recs, ro, rd, 1.0),
+                np.asarray(intersect.any_hit(scene, ro, rd, 1.0)))
 
     def test_deterministic_across_runs(self, cornell):
         scene, lens = cornell

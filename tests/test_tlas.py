@@ -1,5 +1,5 @@
 """Two-level instancing (accel/tlas.py): the shared-BLAS + TLAS path must
-render the same images as the flattened packet path, and engage
+render the same images as the flattened path, and engage
 automatically past the instanced-triangle cap (the reference's BLAS dedup,
 Accel.zig:313-343)."""
 
@@ -108,7 +108,7 @@ class TestTlasTraversal:
     def test_closest_matches_brute_force(self):
         w = instanced_world(n=6, mirrored=True)
         scene = build_tlas_scene(w)
-        assert scene.tlas is not None and scene.wide is None
+        assert scene.tlas is not None and scene.packed is None
 
         verts = flat_world_verts(w)
         rng = np.random.RandomState(11)
@@ -175,7 +175,7 @@ class TestTlasTraversal:
 
 class TestTlasRender:
     def test_image_matches_flattened(self):
-        """Same scene, flattened packet path vs two-level path: identical
+        """Same scene, flattened path vs two-level path: identical
         RNG streams, same surfaces -> images agree to fp tolerance (the
         two paths intersect in different spaces, so t/frames differ by
         ulps that a 3-bounce render amplifies slightly)."""
